@@ -31,6 +31,8 @@ def make_demo_capture(path: Path) -> None:
 
 
 def main() -> int:
+    from tetraear_tpu.runtime.cache import enable_compile_cache
+    enable_compile_cache()
     if len(sys.argv) > 1:
         path = Path(sys.argv[1])
     else:

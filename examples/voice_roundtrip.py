@@ -40,6 +40,8 @@ def synth_speech(n_slots: int, pitch: int = 57) -> np.ndarray:
 
 
 def main() -> int:
+    from tetraear_tpu.runtime.cache import enable_compile_cache
+    enable_compile_cache()
     if not codec.VoiceProcessor().working:
         print("codec library missing — build with: "
               "make -C tetraear_tpu/voice/csrc")

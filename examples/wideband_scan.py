@@ -18,6 +18,8 @@ from tetraear_tpu.scan.scanner import WidebandScanner
 
 
 def main() -> int:
+    from tetraear_tpu.runtime.cache import enable_compile_cache
+    enable_compile_cache()
     fs = 2.4e6
     center = 392.5e6
     # channel grid is 25 kHz with half-channel offset (..., 12.5k, 37.5k, ...)

@@ -371,12 +371,30 @@ def test_pipeline_device_scan_equivalence():
     assert len(fused) >= 4
 
 
-def test_pipeline_fused_backhalf_equivalence(monkeypatch):
-    """The streaming Pipeline's FusedRx path (eligible config: fft
-    frontend, 72 kHz-family rate, carrier_afc off; forced on CPU via
-    TETRAEAR_FORCE_FUSED) yields the same frames as the classic
-    block_step_scan formulation — same contract as the offline
-    DecodeRunner's fused selection (runtime/stream.py)."""
+def _oracle_crc_messages(iq, fs, offset):
+    """CRC-passing SDS messages of the NumPy oracle decode, in order."""
+    from tetraear_tpu.frame.decoder import TetraDecoder
+    from tetraear_tpu.ref import demod
+    syms = demod.OracleDemod(fs=fs, freq_offset_hz=offset).run(
+        iq)["symbols"]
+    return [f.get("sds_message") for f in
+            TetraDecoder(auto_decrypt=False).decode(syms)
+            if f.get("burst_crc")]
+
+
+def _fft_family_config(fs, **kw):
+    """fft frontend on a 72 kHz-family rate (no back-half resample
+    stage), carrier AFC off — the fleet-scale configuration."""
+    return PipelineConfig(sample_rate=fs, carrier_offsets_hz=(12_500.0,),
+                          frontend="fft", carrier_afc=False,
+                          detect_gate=False, voice=False,
+                          auto_decrypt=False, validate=False, **kw)
+
+
+def test_pipeline_fused_backhalf_equivalence():
+    """The streaming Pipeline on the fft frontend at a 72 kHz-family
+    rate yields the CRC-passing frames of the NumPy oracle decode
+    (ref.demod.OracleDemod + TetraDecoder) on the same capture."""
     from tetraear_tpu.ref import golden
 
     fs = 2.304e6                       # 72 kHz * 32
@@ -384,52 +402,31 @@ def test_pipeline_fused_backhalf_equivalence(monkeypatch):
                 for i in range(8)]
     iq = golden.golden_iq(payloads, fs=fs, freq_offset_hz=12_500.0,
                           snr_db=25, seed=31)
-
-    def run(force_fused):
-        if force_fused:
-            monkeypatch.setenv("TETRAEAR_FORCE_FUSED", "1")
-        else:
-            monkeypatch.delenv("TETRAEAR_FORCE_FUSED", raising=False)
-        got = []
-        cfg = PipelineConfig(sample_rate=fs,
-                             carrier_offsets_hz=(12_500.0,),
-                             frontend="fft", carrier_afc=False,
-                             detect_gate=False, voice=False,
-                             auto_decrypt=False, validate=False,
-                             block_len=48_000)
-        pipe = Pipeline(cfg, on_frame=got.append)
-        if force_fused:
-            assert pipe._fused is not None, "config must be eligible"
-        else:
-            assert pipe._fused is None
-        n_blocks = len(iq) // pipe.block_len
-        for b in range(n_blocks):
-            pipe.process_block(
-                iq[b * pipe.block_len:(b + 1) * pipe.block_len])
-        return [(f["stream_symbol"], f.get("burst_crc"),
-                 f.get("sds_message")) for f in got]
-
-    fused = run(True)
-    classic = run(False)
-    assert fused == classic
-    assert sum(1 for _, crc, _ in fused if crc) >= 6
+    got = []
+    pipe = Pipeline(_fft_family_config(fs, block_len=48_000),
+                    on_frame=got.append)
+    assert not pipe.bank.plan.stages
+    n_blocks = len(iq) // pipe.block_len
+    for b in range(n_blocks):
+        pipe.process_block(iq[b * pipe.block_len:(b + 1) * pipe.block_len])
+    msgs = [f.get("sds_message") for f in got if f.get("burst_crc")]
+    want = _oracle_crc_messages(iq[:n_blocks * pipe.block_len], fs,
+                                12_500.0)
+    assert len(msgs) >= 6
+    assert msgs == want[:len(msgs)]
+    assert len(want) - len(msgs) <= 1      # a slot cut by the last block
 
 
-def test_pipeline_fused_checkpoint_roundtrip(monkeypatch, tmp_path):
-    """Seamless checkpoint works on the fused streaming path (its state
-    tree embeds the device bit tail)."""
+def test_pipeline_fused_checkpoint_roundtrip(tmp_path):
+    """Seamless checkpoint on the fft-frontend streaming path: a
+    save/restore between blocks reproduces the uninterrupted run."""
     from tetraear_tpu.ref import golden
 
-    monkeypatch.setenv("TETRAEAR_FORCE_FUSED", "1")
     fs = 2.304e6
     payloads = [golden.sds_text_payload("FUSED CKPT")] * 8
     iq = golden.golden_iq(payloads, fs=fs, freq_offset_hz=12_500.0,
                           snr_db=25, seed=32)
-    cfg = PipelineConfig(sample_rate=fs, carrier_offsets_hz=(12_500.0,),
-                         frontend="fft", carrier_afc=False,
-                         detect_gate=False, voice=False,
-                         auto_decrypt=False, validate=False,
-                         block_len=48_000)
+    cfg = _fft_family_config(fs, block_len=48_000)
 
     def key(frames):
         return [(f["stream_symbol"], f.get("burst_crc"),
@@ -444,7 +441,6 @@ def test_pipeline_fused_checkpoint_roundtrip(monkeypatch, tmp_path):
 
     got = []
     p1 = Pipeline(cfg, on_frame=got.append)
-    assert p1._fused is not None
     for b in blocks[:2]:
         p1.process_block(b)
     p1.save_checkpoint(tmp_path / "f.npz")
@@ -453,15 +449,15 @@ def test_pipeline_fused_checkpoint_roundtrip(monkeypatch, tmp_path):
     for b in blocks[2:]:
         p2.process_block(b)
     assert key(got) == key(base)
+    assert sum(1 for _, crc, _ in key(base) if crc) >= 6
 
 
-def test_pipeline_fused_with_frame_workers(monkeypatch):
-    """Fused streaming path + the carrier-sharded worker frame layer
-    (frame_workers > 0) yields the same frames as the in-process
+def test_pipeline_fused_with_frame_workers():
+    """fft-frontend streaming path + the carrier-sharded worker frame
+    layer (frame_workers > 0) yields the same frames as the in-process
     layer."""
     from tetraear_tpu.ref import golden
 
-    monkeypatch.setenv("TETRAEAR_FORCE_FUSED", "1")
     fs = 2.304e6
     payloads = [golden.sds_text_payload(f"FUSED WORKERS {i}")
                 for i in range(8)]
@@ -470,14 +466,8 @@ def test_pipeline_fused_with_frame_workers(monkeypatch):
 
     def run(workers):
         got = []
-        cfg = PipelineConfig(sample_rate=fs,
-                             carrier_offsets_hz=(12_500.0,),
-                             frontend="fft", carrier_afc=False,
-                             detect_gate=False, voice=False,
-                             auto_decrypt=False, validate=False,
-                             frame_workers=workers)
-        pipe = Pipeline(cfg, on_frame=got.append)
-        assert pipe._fused is not None
+        pipe = Pipeline(_fft_family_config(fs, frame_workers=workers),
+                        on_frame=got.append)
         try:
             for b in range(len(iq) // pipe.block_len):
                 pipe.process_block(

@@ -72,7 +72,7 @@ def test_fft_frontend_streaming_blocks():
     tx = modulator.bits_to_symbols(bits)
     # a run crossing the first block boundary must be error-free; the
     # span derives from the bank geometry (block_len depends on the
-    # overlap choice, e.g. the fft2p splice alignment)
+    # overlap choice)
     n_blocks = len(iq) // bank.block_len
     n_sym = int(n_blocks * bank.block_len / 2.4e6 * 18_000)
     b_sym = int(bank.block_len / 2.4e6 * 18_000)
@@ -146,51 +146,10 @@ def test_aligned_row_gather_path():
         assert _best(out["symbols"][i], tx) == 1.0, f"carrier {i}"
 
 
-def test_pallas_band_extract_interpret():
-    """The Pallas DMA extraction kernel agrees with the gather reference
-    (interpreter mode; see pallas_kernels docstring for hardware
-    constraints)."""
-    import jax.numpy as jnp
-    from tetraear_tpu.dsp.pallas_kernels import (band_extract,
-                                                 band_extract_reference)
-    rng = np.random.default_rng(0)
-    nfft, n_band, C = 4096, 256, 8
-    x = rng.standard_normal((nfft + n_band, 2)).astype(np.float32)
-    starts = rng.integers(0, nfft, C).astype(np.int32)
-    ref = np.asarray(band_extract_reference(jnp.asarray(x),
-                                            jnp.asarray(starts), n_band))
-    pal = np.asarray(band_extract(jnp.asarray(x), jnp.asarray(starts),
-                                  n_band, interpret=True))
-    assert np.array_equal(ref, pal)
-
-
 def test_fft_frontend_validates_block():
     with pytest.raises(ValueError):
         CarrierBankDemod(fs=2.4e6, freqs_hz=[0.0], block_len=12_345,
                          frontend="fft")
-
-
-def test_pallas_extract_flag_bit_exact(monkeypatch):
-    """TETRAEAR_PALLAS_EXTRACT=1 swaps the aligned row gather for the
-    plane-layout Pallas DMA kernel (interpret mode off-TPU); symbol
-    decisions must be identical."""
-    fs = 10.24e6
-    rng = np.random.default_rng(0)
-    hot = [-3_012_500.0, -37_500.0, 12_500.0, 2_512_500.0]
-    bits = [rng.integers(0, 2, 2200).astype(np.uint8) for _ in hot]
-    iq = modulator.generate_multi_carrier(
-        bits, fs=fs, offsets_hz=hot, snr_db=20,
-        rng=np.random.default_rng(1))
-    base = CarrierBankDemod(fs=fs, freqs_hz=hot, frontend="fft")
-    iq = _pad_to(iq, base.block_len, np.random.default_rng(2))
-    ref = base.run(iq[:base.block_len])
-
-    monkeypatch.setenv("TETRAEAR_PALLAS_EXTRACT", "1")
-    bank = CarrierBankDemod(fs=fs, freqs_hz=hot, frontend="fft")
-    assert bank.channelizer.use_pallas
-    out = bank.run(iq[:bank.block_len])
-    np.testing.assert_array_equal(np.asarray(ref["symbols"]),
-                                  np.asarray(out["symbols"]))
 
 
 @pytest.mark.integration
@@ -315,189 +274,47 @@ def test_quantized_streaming_continuity():
                  tx[100:n_blk_syms + 2000]) == 1.0
 
 
-@pytest.mark.unit
-def test_fourstep_wideband_fft_matches_fft():
-    """_wideband_fft's four-step decomposition (fft4) must equal the
-    monolithic FFT to f32 rounding at any pow2 size; production enables
-    it above 2^20, here it is forced on at a test-scale nfft."""
-    import jax.numpy as jnp
-    ch = CarrierBankDemod(fs=9.216e6, freqs_hz=[12_500.0],
-                          frontend="fft").channelizer
-    assert ch.fft4                       # on at this nfft already
-    rng = np.random.default_rng(5)
-    xx = (rng.standard_normal(ch.nfft)
-          + 1j * rng.standard_normal(ch.nfft)).astype(np.complex64)
-    got = np.asarray(ch._wideband_fft(jnp.asarray(xx)))
-    want = np.fft.fft(xx)
-    rel = np.max(np.abs(got - want)) / np.max(np.abs(want))
-    assert rel < 1e-5, rel
 
 
-@pytest.mark.unit
-def test_sixstep_wideband_fft_matches_fft(monkeypatch):
-    """TETRAEAR_FFT6=1 (explicit-transpose six-step first stage) equals
-    the monolithic FFT to f32 rounding."""
-    import jax.numpy as jnp
-    monkeypatch.setenv("TETRAEAR_FFT6", "1")
-    ch = CarrierBankDemod(fs=9.216e6, freqs_hz=[12_500.0],
-                          frontend="fft").channelizer
-    assert ch.fft4
-    rng = np.random.default_rng(6)
-    xx = (rng.standard_normal(ch.nfft)
-          + 1j * rng.standard_normal(ch.nfft)).astype(np.complex64)
-    got = np.asarray(ch._wideband_fft(jnp.asarray(xx)))
-    want = np.fft.fft(xx)
-    rel = np.max(np.abs(got - want)) / np.max(np.abs(want))
-    assert rel < 1e-5, rel
-
-
-
-
-@pytest.mark.unit
-def test_fft2p_planes_matches_np_fft():
-    """Two-pass Pallas MXU FFT (pallas_kernels.fft2p_planes): natural-
-    order planes + wrap extension equal np.fft to f32 rounding."""
-    import jax.numpy as jnp
-    from tetraear_tpu.dsp import pallas_kernels as pk
-
-    rng = np.random.default_rng(5)
-    n1, n2 = 512, 256
-    n = n1 * n2
-    x = (rng.standard_normal(n)
-         + 1j * rng.standard_normal(n)).astype(np.complex64)
-    planes = np.stack([x.reshape(n2, n1).real,
-                       x.reshape(n2, n1).imag]).astype(np.float32)
-    got = np.asarray(pk.fft2p_planes(jnp.asarray(planes), n1, n2,
-                                     wrap_k1=2, interpret=True))
-    want = np.fft.fft(x)
-    gotc = (got[0] + 1j * got[1]).reshape(-1)
-    scale = np.max(np.abs(want))
-    assert np.max(np.abs(gotc[:n] - want)) / scale < 2e-5
-    # wrap rows replay bins 0..2*n2
-    assert np.max(np.abs(gotc[n:n + 2 * n2] - want[:2 * n2])) / scale \
-        < 2e-5
-
-
-@pytest.mark.unit
-def test_fft2p_chan_raw_decisions_exact(monkeypatch):
-    """FusedRx.chan_raw through the two-pass MXU FFT produces the same
-    scan verdicts as the XLA four-step glue on a golden carrier."""
-    import jax.numpy as jnp
-    from tetraear_tpu.dsp import backhalf, kernels
-    from tetraear_tpu.ref import golden
-
-    fs = 2.304e6
-    payloads = [golden.sds_text_payload("FFT2P CHECK")] * 24
-    iq = golden.golden_iq(payloads, fs=fs, freq_offset_hz=12_500.0,
-                          snr_db=20, seed=9)
-    bank = CarrierBankDemod(fs=fs, freqs_hz=[12_500.0], frontend="fft")
-    assert bank.channelizer.fft2p_ok
-    fused = backhalf.FusedRx(bank)
-    x_r = jnp.asarray(kernels.c2r_np(iq[:bank.block_len]))
-    ref, _ = fused.step(x_r, fused.init_state())
-    monkeypatch.setenv("TETRAEAR_FFT2P", "1")
-    got, _ = fused.step(x_r, fused.init_state())
-    # the ~3e-7 relative plane difference may flip noise-region symbols
-    # sitting exactly on a decision boundary; the contract is the
-    # VERDICTS: identical sync hits, identical CRC counts at the hits
-    hits_ref = np.asarray(ref["corr"]) >= 0.90
-    hits_got = np.asarray(got["corr"]) >= 0.90
-    assert hits_ref.sum() > 0
-    np.testing.assert_array_equal(hits_got, hits_ref)
-    from tetraear_tpu.dsp import framescan
-    off = framescan.TS_OFFSET_BITS // 2
-    err_ref = np.asarray(ref["crc_err"])
-    err_got = np.asarray(got["crc_err"])
-    for c, pe in zip(*np.nonzero(hits_ref)):
-        j = pe - off
-        if 0 <= j < err_ref.shape[1]:
-            assert err_got[c, j] == err_ref[c, j], (c, pe)
-
-
-@pytest.mark.unit
-def test_fft2p_spliced_matches_glue():
-    """fft2p_planes_spliced (tail + block as separate planar inputs,
-    spliced inside pass 1) is BIT-IDENTICAL to fft2p_planes on the
-    stacked concat window — same matmuls on the same tiles."""
-    import jax.numpy as jnp
-    from tetraear_tpu.dsp import pallas_kernels as pk
-
-    rng = np.random.default_rng(7)
-    n1, n2 = 512, 256
-    o2 = 16                              # 8-aligned tail row count
-    n = n1 * n2
-    x = (rng.standard_normal(n)
-         + 1j * rng.standard_normal(n)).astype(np.complex64)
-    planes = np.stack([x.reshape(n2, n1).real,
-                       x.reshape(n2, n1).imag]).astype(np.float32)
-    want = np.asarray(pk.fft2p_planes(jnp.asarray(planes), n1, n2,
-                                      wrap_k1=2, interpret=True))
-    got = np.asarray(pk.fft2p_planes_spliced(
-        jnp.asarray(planes[:, :o2]), jnp.asarray(planes[:, o2:]),
-        n1, n2, wrap_k1=2, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.unit
-def test_fused_planar_spliced_step_exact(monkeypatch):
-    """FusedRx.step fed the planar (2, N) block through the spliced
-    fft2p input (the production TPU layout) produces bit-identical
-    outputs and state to the interleaved (N, 2) glue path."""
-    import jax.numpy as jnp
-    from tetraear_tpu.dsp import backhalf, kernels
-    from tetraear_tpu.ref import golden
-
-    fs = 2.304e6
-    payloads = [golden.sds_text_payload("SPLICE CHECK")] * 24
-    iq = golden.golden_iq(payloads, fs=fs, freq_offset_hz=12_500.0,
-                          snr_db=20, seed=11)
+@pytest.mark.parametrize("fs", [2.304e6, 2.4e6, 9.216e6, 10.24e6])
+def test_overlap_is_minimal_quantum_multiple(fs):
+    """The overlap is the smallest multiple of the block quantum (decim x
+    back-half granularity, offset by nfft mod quantum) that covers the
+    channel filter (+ folded RRC) memory, so block_len is the largest
+    valid block."""
     bank = CarrierBankDemod(fs=fs, freqs_hz=[12_500.0], frontend="fft")
     ch = bank.channelizer
-    assert ch.fft2p_splice, "geometry must allow the aligned splice"
-    assert ch.overlap % (8 * ch.fft2p_n1) == 0
-    fused = backhalf.FusedRx(bank)
-    monkeypatch.setenv("TETRAEAR_FFT2P", "1")
-
-    iqb = iq[:bank.block_len]
-    x_r = jnp.asarray(kernels.c2r_np(iqb))       # interleaved
-    x_p = jnp.asarray(kernels.c2p_np(iqb))       # planar
-
-    monkeypatch.setenv("TETRAEAR_FFT2P_SPLICE", "0")
-    ref, st_ref = fused.step(x_r, fused.init_state())
-    monkeypatch.delenv("TETRAEAR_FFT2P_SPLICE")
-    got, st_got = fused.step(x_p, fused.init_state())
-
-    for k in ("corr", "crc_err", "soft_planes", "n_valid"):
-        np.testing.assert_array_equal(np.asarray(got[k]),
-                                      np.asarray(ref[k]), err_msg=k)
-    ct_ref = st_ref["bank"]["channelizer"]["tail"]
-    ct_got = st_got["bank"]["channelizer"]["tail"]
-    np.testing.assert_array_equal(np.asarray(ct_got),
-                                  np.asarray(ct_ref))
+    quantum = bank.granularity
+    mem = ch.h1_len + (0 if ch.fold_fir is None
+                       else (len(ch.fold_fir) - 1) * ch.decim)
+    need = max(mem, ch.decim)
+    assert ch.overlap >= need
+    assert ch.overlap - quantum < need
+    assert ch.block_len % quantum == 0
+    assert ch.block_len + ch.overlap == ch.nfft
 
 
-@pytest.mark.unit
-def test_fft2p_spliced_split_dot(monkeypatch):
-    """TETRAEAR_FFT2P_SPLIT_DOT=1 (concat-free spliced pass 1: block
-    piece against the lane-sliced DFT matrix + tail rows as broadcast
-    outer products) matches the glue path to f32 rounding (not bitwise
-    — the tail terms accumulate after the dot)."""
+@pytest.mark.parametrize("fs,offsets", [
+    (9.216e6, [-2_487_500.0, 12_500.0, 1_512_500.0]),     # quantized
+    (10.24e6, [-3_012_500.0, 12_500.0]),                  # aligned rows
+])
+def test_channelizer_matches_numpy_reference(fs, offsets):
+    """FFTChannelizer.step on a carried-state block == ref.channelizer
+    (float64 NumPy) to float32 rounding: max abs error <= 1e-5 x RMS."""
+    import jax
     import jax.numpy as jnp
-    from tetraear_tpu.dsp import pallas_kernels as pk
-
-    rng = np.random.default_rng(8)
-    n1, n2 = 512, 256
-    o2 = 8                               # k = o2/a2 = 4 whole rows
-    n = n1 * n2
-    x = (rng.standard_normal(n)
-         + 1j * rng.standard_normal(n)).astype(np.complex64)
-    planes = np.stack([x.reshape(n2, n1).real,
-                       x.reshape(n2, n1).imag]).astype(np.float32)
-    want = np.asarray(pk.fft2p_planes(jnp.asarray(planes), n1, n2,
-                                      wrap_k1=2, interpret=True))
-    monkeypatch.setenv("TETRAEAR_FFT2P_SPLIT_DOT", "1")
-    got = np.asarray(pk.fft2p_planes_spliced(
-        jnp.asarray(planes[:, :o2]), jnp.asarray(planes[:, o2:]),
-        n1, n2, wrap_k1=2, interpret=True))
-    rel = np.max(np.abs(got - want)) / np.max(np.abs(want))
-    assert rel < 5e-5, rel
+    from tetraear_tpu.ref.channelizer import channelize_block
+    ch = CarrierBankDemod(fs=fs, freqs_hz=offsets,
+                          frontend="fft").channelizer
+    rng = np.random.default_rng(4)
+    bits = [rng.integers(0, 2, 3000).astype(np.uint8) for _ in offsets]
+    iq = modulator.generate_multi_carrier(bits, fs=fs, offsets_hz=offsets,
+                                          snr_db=20, rng=rng)
+    iq = _pad_to(iq, 2 * ch.block_len, rng)
+    step = jax.jit(ch.step)
+    _, st = step(jnp.asarray(iq[:ch.block_len]), ch.init_state())
+    y, _ = step(jnp.asarray(iq[ch.block_len:]), st)
+    window = iq[ch.block_len - ch.overlap:]
+    ref = channelize_block(ch, window, cycles=np.asarray(st["cycles"]))
+    rms = np.sqrt(np.mean(np.abs(ref) ** 2))
+    assert np.max(np.abs(np.asarray(y) - ref)) <= 1e-5 * rms

@@ -26,7 +26,7 @@ def test_roundtrip_cbc(alg, key, rng):
 
 
 def test_tea1_golden_vector():
-    """Pinned output so the TPU batch kernel can be checked against it."""
+    """Pinned output so the device batch kernel can be checked against it."""
     d = TEADecryptor(K1, "TEA1")
     out = d.decrypt(bytes(range(8)))
     assert len(out) == 8

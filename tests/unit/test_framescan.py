@@ -209,3 +209,21 @@ def test_sync_cascade_stride():
     dense_pos = dec_mod.sync_cascade(corr)
     even_pos = dec_mod.sync_cascade(corr[::2], stride=2)
     assert dense_pos == even_pos == [300, 1400, 2900]
+
+
+@pytest.mark.unit
+@pytest.mark.parametrize("n", [230, 231, 510, 1201, 2547, 5270])
+def test_even_scan_matches_host_scan_at_widths(n):
+    """The kept device formulation (frame_scan_packed_even, packed bf16
+    conv) gives bit-identical verdicts to the exact NumPy even-position
+    scan at widths around the pad/stride boundaries."""
+    import jax.numpy as jnp
+    bits = _random_bits(3, n, seed=n)
+    if n >= 510:
+        from tetraear_tpu.ref import golden
+        bits[1, :510] = golden.build_slot(
+            golden.build_mac_resource_data_bits(b"WIDTHS"))
+    dev = framescan.frame_scan_packed_even(jnp.asarray(bits))
+    corr, err = framescan.host_scan_rows_even(bits)
+    np.testing.assert_array_equal(np.asarray(dev["corr"]), corr)
+    np.testing.assert_array_equal(np.asarray(dev["crc_err"]), err)

@@ -41,11 +41,9 @@ def test_host_scan_rows_even_matches_device():
     bits = _planted_bits(3, 1700, seed=7)
     dev = framescan.frame_scan_packed_even(bits)
     corr_h, crc_h = framescan.host_scan_rows_even(bits)
-    # corr: decision-equivalent (the Pallas path multiplies by a
-    # reciprocal, ~6e-8 wobble, far below every cascade margin — see
-    # unpack_hits_to_planes); crc: bitwise
-    np.testing.assert_allclose(np.asarray(dev["corr"]), corr_h,
-                               atol=1e-6)
+    # corr and crc: bitwise (both divide the exact integer agreement
+    # count by 22 in float32)
+    np.testing.assert_array_equal(np.asarray(dev["corr"]), corr_h)
     np.testing.assert_array_equal(np.asarray(dev["crc_err"]), crc_h)
     # the integer agreement counts themselves are exact
     np.testing.assert_array_equal(

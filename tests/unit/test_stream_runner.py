@@ -64,43 +64,6 @@ def test_decode_runner_matches_streaming_pipeline():
     assert len(ref) >= 6
 
 
-def test_decode_runner_fused_backhalf_matches_classic(monkeypatch):
-    """The Pallas fused back half (dsp.backhalf) behind DecodeRunner
-    produces the same decoded frames as the classic XLA chain on an
-    eligible 72 kHz-family config."""
-    from tetraear_tpu.dsp.pipeline import CarrierBankDemod
-    from tetraear_tpu.frame.batch import BatchedFrameDecoder
-    from tetraear_tpu.runtime.stream import DecodeRunner
-    from tetraear_tpu.ref import golden
-
-    fs = 2.304e6
-    # block_len at this fs is ~258k samples; 24 slots ~ 780k = 3 blocks
-    payloads = [golden.sds_text_payload("FUSED BACKHALF RUN")] * 24
-    iq = golden.golden_iq(payloads, fs=fs, freq_offset_hz=12_500.0,
-                          snr_db=25, seed=57)
-
-    def frames_with(env, expect_fused):
-        monkeypatch.setenv("TETRAEAR_FORCE_FUSED",
-                           "1" if env == "fused" else "0")
-        monkeypatch.setenv("TETRAEAR_NO_FUSED",
-                           "1" if env == "classic" else "0")
-        bank = CarrierBankDemod(fs=fs, freqs_hz=[12_500.0],
-                                frontend="fft")
-        runner = DecodeRunner(bank,
-                              BatchedFrameDecoder(1, auto_decrypt=False),
-                              blocks_per_dispatch=2)
-        assert (runner.fused is not None) == expect_fused
-        out = runner.run(iq)
-        return [(f["stream_symbol"], f["burst_crc"],
-                 f.get("sds_message")) for f in out["frames"]
-                if f["burst_crc"]]
-
-    classic = frames_with("classic", False)
-    fused = frames_with("fused", True)
-    assert len(classic) >= 4
-    assert fused == classic
-
-
 def test_decode_runner_no_soft_fetch():
     """fetch_soft=False skips materializing the soft planes (the voice
     path is the only consumer): identical frames, soft_symbols None."""

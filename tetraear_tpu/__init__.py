@@ -1,4 +1,4 @@
-"""tetraear-tpu: TPU-native TETRA IQ-processing framework.
+"""tetraear-tpu: TETRA IQ-processing framework on JAX accelerators.
 
 Lazy top-level re-exports (the reference package uses the same pattern to
 avoid heavy imports at package-import time, tetraear/__init__.py:25-47 —

@@ -10,8 +10,8 @@ symbol instants, then pi/4-DQPSK differential demod with quadrant
 decisions and soft bits.
 
 At sps=4 the O&M twiddles exp(-j 2 pi n / 4) are exactly {1,-j,-1,j}, so
-the timing metric reduces to four strided power sums — pure VPU reductions,
-no transcendentals.
+the timing metric reduces to four strided power sums — elementwise
+reductions, no transcendentals.
 """
 
 from __future__ import annotations
@@ -71,8 +71,7 @@ def timing_recover(y: jnp.ndarray, state: dict,
     Gather-free interpolation: symbol instants are t_k = next_t + 4k, so
     the fractional part is constant per carrier and the four cubic taps
     are stride-4 slices of z at one of four integer base offsets —
-    16 static strided slices + a 4-way select instead of per-element
-    gathers (TPU gathers cost ~100x more than slices).
+    static slices + a 4-way select instead of per-element gathers.
     """
     c, n = y.shape
     if n % SPS != 0:
@@ -103,10 +102,8 @@ def timing_recover(y: jnp.ndarray, state: dict,
         [state["tail"], y, jnp.zeros((c, SPS + 4), y.dtype)], axis=1)
     # taps[j] = z[:, b + j + 4k] for b in {0..3}: ONE phase-major
     # transpose (C, L) -> (C, 4, L/4) turns every (b, j) candidate into
-    # a contiguous slice of plane (b+j) % 4 at offset (b+j) // 4 — the
-    # earlier 16 stride-4 minor-dim slices each forced a full-array
-    # relayout and made the interpolator the whole back-half cost
-    # (~45 ms/block at C=10240, perf/channelizer_breakdown.py "tim").
+    # a contiguous slice of plane (b+j) % 4 at offset (b+j) // 4 instead
+    # of 16 stride-4 minor-dim slices.
     # Only q = b + j in [0, 6] distinct plane slices exist — build the 7
     # once and select per tap.
     L = z_p.shape[1]

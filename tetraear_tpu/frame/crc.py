@@ -6,8 +6,8 @@ matrix formulation: for a fixed message length L,
 
     crc(bits) = (M_L @ bits) xor c0_L   over GF(2)
 
-which turns batched CRC checking into an int8 matmul — the form the TPU
-path uses to CRC-check thousands of bursts per step on the MXU.
+which turns batched CRC checking into an int8 matmul — the form the device
+path uses to CRC-check thousands of bursts per step.
 """
 
 from __future__ import annotations

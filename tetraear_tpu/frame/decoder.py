@@ -10,7 +10,7 @@ with the hot paths vectorized:
   * frame dictionaries carry the same keys as the reference so downstream
     consumers (validator, UI, JSONL logs, offline tools) are drop-in.
 
-The TPU path computes the same correlations on device for thousands of
+The device path computes the same correlations on device for thousands of
 carriers at once (tetraear_tpu.dsp.sync); this host implementation is the
 oracle and the single-carrier fallback.
 """

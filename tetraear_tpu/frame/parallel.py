@@ -20,8 +20,11 @@ core feeds N worker cores; the parent's per-block work is a handful of
 vectorized passes, so throughput scales with workers until assembly
 saturates.
 
-Workers never import JAX (frame.decoder / frame.batch are NumPy-only
-at import time); deferred decryption returns to the parent as
+Workers never open an accelerator: they start with JAX_PLATFORMS=cpu
+in their environment, so even an accidental JAX import stays on the
+host and the parent remains the one process on the card (a JAX process
+reserves most of a card's memory when it first touches it).  Deferred
+decryption returns to the parent as
 ``decryption_pending`` frames and is finished there with ONE device
 keys x payloads search per block (crypto.batch), exactly like the
 in-process layer.
@@ -32,7 +35,9 @@ tests/unit/test_parallel_frames.py.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
+import os
 
 import numpy as np
 
@@ -160,6 +165,23 @@ def _worker_main(conn, key_file, auto_decrypt, keys):
         conn.send(("ok", frames))
 
 
+@contextlib.contextmanager
+def _host_only_env():
+    """JAX_PLATFORMS=cpu in os.environ while a worker is spawned: the
+    spawned interpreter inherits the environment of the moment it
+    starts.  The parent's own JAX read its platform setting at import,
+    so the parent is unaffected."""
+    old = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["JAX_PLATFORMS"]
+        else:
+            os.environ["JAX_PLATFORMS"] = old
+
+
 class ShardedFrameLayer:
     """Drop-in BatchedFrameDecoder with pass-2 sharded over workers.
 
@@ -214,7 +236,8 @@ class ShardedFrameLayer:
         p = self._ctx.Process(target=_worker_main,
                               args=(cc,) + self._spawn_args,
                               daemon=True)
-        p.start()
+        with _host_only_env():
+            p.start()
         cc.close()
         self._conns[w] = pc
         self._procs[w] = p

@@ -1,6 +1,6 @@
 """NumPy oracle demodulation chain — the CPU bit-exactness contract.
 
-Chain (same algorithm and taps as the JAX/TPU path in ``tetraear_tpu.dsp``):
+Chain (same algorithm and taps as the JAX device path in ``tetraear_tpu.dsp``):
 
   1. NCO mix by -freq_offset (phase-continuous across blocks)
      [reference: tetraear/signal/processor.py:85-100]
@@ -16,7 +16,7 @@ Chain (same algorithm and taps as the JAX/TPU path in ``tetraear_tpu.dsp``):
      quantization thresholds [processor.py:152-161]
 
 Every step carries explicit streaming state so results are independent of the
-block size — the property that lets the TPU runtime shard the time axis.
+block size — the property that lets the device runtime shard the time axis.
 """
 
 from __future__ import annotations

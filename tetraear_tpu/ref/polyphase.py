@@ -1,18 +1,18 @@
 """Streaming polyphase rational resampling — NumPy oracle implementation.
 
-This is the bit-exactness contract for the JAX/TPU kernels in
+This is the bit-exactness contract for the JAX device kernels in
 ``tetraear_tpu.dsp``: identical taps, identical windowing, identical
 block/halo semantics.  The JAX path must produce the same outputs (to float32
 tolerance) for the same blocks.
 
-Semantics (shared with the TPU path):
+Semantics (shared with the device path):
 
   For a stage (L, M, taps h[T]) the conceptual operation is: zero-stuff the
   input by L, filter causally with h, keep every M-th output.  A block of N
   input samples (with N*L % M == 0) produces N*L//M outputs.  Streaming
   continuity requires H = ceil((T-1)/L) input samples of history carried
   between blocks — the "overlap-save halo" that becomes a ``ppermute``
-  exchange when the time axis is sharded across TPU chips.
+  exchange when the time axis is sharded across devices.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
 """Tracing and per-stage throughput counters.
 
 The reference has no profiling at all (SURVEY.md section 5.1); this module
-provides the TPU-native equivalents:
+provides the device-side equivalents:
 
   * Profiler — context manager around jax.profiler.trace writing
     TensorBoard-loadable traces (xplane) for kernel-level analysis;
   * StageTimers — host-side per-stage wall-time accounting with
     samples/s rates, for the streaming pipeline's steady-state numbers;
   * roofline_estimate — back-of-envelope FLOP/byte counts for the demod
-    chain, to compare measured throughput against the HBM roofline.
+    chain, to compare measured throughput against the HBM roofline;
+  * DEVICE_PEAKS / device_peaks — published peak rates keyed by
+    ``jax.devices()[0].device_kind``, the only denominators
+    roofline_fraction divides by.
 """
 
 from __future__ import annotations
@@ -114,153 +117,58 @@ def roofline_estimate(n_carriers: int, fs: float, frontend: str = "fft",
     }
 
 
-def voice_roofline(n_carriers: int, block_s: float,
-                   rt_factor: float | None = None,
-                   frames_per_carrier_block: int = 4,
-                   basicops_per_frame: float | None = None,
-                   eff_ops_per_s: float | None = None) -> dict:
-    """Device-limit model for the bit-exact ETSI ACELP voice chain.
-
-    The decoder (voice/jspeech.py) is a chain of ~50k SEQUENTIAL Word16
-    basic operations per 30 ms speech frame — saturating Q15 mults,
-    adds, shifts whose exact rounding the conformance corpus pins, so
-    no reformulation may reorder or batch them WITHIN a frame.  The
-    device parallelizes across frames (carriers x slots fill VPU
-    lanes), so the ceiling is the effective rate at which the chip
-    retires lane-parallel basicop STEPS:
-
-        t_block >= C * frames/block * basicops / eff_rate
-
-    eff_rate is CALIBRATED, not a datasheet figure: agenda10's jsponly
-    stage retired 16,384 frames x ~50k basicops in ~205 ms =
-    ~4.0e9 basicops/s (TETRAEAR_VOICE_EFF_OPS overrides; recalibrate
-    whenever jspeech's scan structure changes).  The v5e VPU's
-    theoretical int-op rate (~3.9e12/s: 8 cores x 4 ALUs x (8, 128)
-    lanes x 940 MHz) sits ~1000x higher — unreachable here because
-    each basicop expands to several saturation/rounding vector ops on
-    a dependent chain only ~16 vregs wide, and the lax.scan step
-    machinery costs more than the body at this width
-    (perf/scan_overhead_probe.py).  Both numbers are reported so the
-    gap stays visible instead of buried in prose (VERDICT r03 item 5).
-
-    Returns the model ceiling in realtime carriers and, when rt_factor
-    (measured realtime multiple) is given, the fraction achieved.
-    """
-    import os
-    basicops = basicops_per_frame or float(os.environ.get(
-        "TETRAEAR_ACELP_BASICOPS", "50e3"))
-    eff = eff_ops_per_s or float(os.environ.get(
-        "TETRAEAR_VOICE_EFF_OPS", "4.0e9"))
-    ops_per_carrier_block = frames_per_carrier_block * basicops
-    # realtime ceiling: carriers such that the block decodes in block_s
-    model_carriers = eff * block_s / ops_per_carrier_block
-    out = {
-        "model_voice_carriers_rt": model_carriers,
-        "model_ms_per_block": 1e3 * n_carriers * ops_per_carrier_block
-        / eff,
-        "basicops_per_frame": basicops,
-        "eff_basicops_per_s": eff,
-        "theoretical_vpu_int_ops_per_s": 3.9e12,
-        "frames_per_carrier_block": frames_per_carrier_block,
-    }
-    if rt_factor is not None:
-        achieved = rt_factor * n_carriers
-        out["voice_model_pct"] = 100.0 * achieved / model_carriers
-    return out
+# Published dense peaks per device kind.  Source: NVIDIA H100 and H200
+# Tensor Core GPU data sheets (SXM parts, no sparsity) and the Hopper
+# architecture white paper.  fp32_flops is the non-tensor-core float32
+# rate, the rate the Precision.HIGHEST float32 chain runs at.  These
+# rates assume the card's full 700 W power limit.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12, "tf32_flops": 495e12, "fp32_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+        "source": "NVIDIA H100 SXM data sheet"},
+    "NVIDIA H200": {
+        "bf16_flops": 989e12, "tf32_flops": 495e12, "fp32_flops": 67e12,
+        "hbm_bytes_per_s": 4.8e12,
+        "source": "NVIDIA H200 SXM data sheet"},
+}
 
 
-def measured_hbm_gbs(repo_root: str | Path | None = None) -> tuple:
-    """Session-calibrated HBM streaming bandwidth -> (GB/s, provenance).
-
-    Closes the probe -> constant -> headline chain (round-4 verdict
-    item 5): instead of a hardcoded round-3 number, the denominator for
-    ``roofline_measured_pct`` is read from the newest committed PERF
-    bundle whose hbm rung succeeded (perf/agenda.py writes one per
-    evidence run; the rung is perf/hbm_bw_probe.py's chained axpy pass —
-    the same figure the 405 constant came from).  Precedence:
-
-      1. TETRAEAR_MEASURED_GBS (explicit operator calibration),
-      2. newest PERF_*.json with steps.hbm.result.axpy_gbs, rc 0 AND
-         a >= 1 GB footprint (a 512 MB trial measured 293 GB/s vs 411
-         at 1024 MB — the ~1 ms fixed per-pass overhead dominates
-         small arrays and would FLATTER the roofline fraction),
-      3. the agenda8 constant 405 (documented fallback for checkouts
-         with no bundle).
-
-    The provenance string is carried into the bench JSON so every
-    roofline claim names its denominator's source.
-    """
-    import json
-    import os
-    env = os.environ.get("TETRAEAR_MEASURED_GBS")
-    if env:
-        return float(env), "env:TETRAEAR_MEASURED_GBS"
-    root = Path(repo_root) if repo_root else \
-        Path(__file__).resolve().parents[2]
-    best = None                       # (started_utc, gbs, filename)
-    for p in root.glob("PERF_*.json"):
-        try:
-            d = json.loads(p.read_text())
-        except (OSError, json.JSONDecodeError):
-            continue
-        step = (d.get("steps") or {}).get("hbm") or {}
-        res = step.get("result") or {}
-        gbs = res.get("axpy_gbs")
-        if not gbs or step.get("returncode") or res.get("mb", 0) < 1024:
-            continue
-        key = str(d.get("started_utc", ""))
-        if best is None or key > best[0]:
-            best = (key, float(gbs), p.name)
-    if best is not None:
-        return best[1], f"{best[2]}:steps.hbm.axpy_gbs"
-    return 405.0, "default:agenda8-axpy"
+def device_peaks(device_kind: str) -> dict:
+    """Peak rates for ``device_kind``; an unknown device is an error."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            f"to runtime.profiling.DEVICE_PEAKS with its source") from None
 
 
 def roofline_fraction(n_carriers: int, fs: float, rt_factor: float,
-                      frontend: str = "fft",
-                      peak_flops: float | None = None,
-                      peak_bw: float | None = None,
-                      include_scan: bool = True) -> dict:
-    """Fraction of the chip roofline the measured run achieves.
+                      device_kind: str, frontend: str = "fft") -> dict:
+    """Fraction of the device roofline the measured run achieves.
 
     rt_factor: measured realtime multiple (input seconds per wall
-    second).  Peaks default to TPU v5e-class figures (197 TFLOP/s bf16
-    matmul, 819 GB/s HBM) and can be overridden via arguments or the
-    TETRAEAR_PEAK_TFLOPS / TETRAEAR_PEAK_GBS environment variables —
-    note most of this chain runs f32, whose MXU peak is lower, so the
-    reported fraction is a conservative floor.
+    second).  The denominators are device_peaks(device_kind): the
+    float32 non-tensor rate (the chain runs float32 at HIGHEST
+    precision) and the HBM bandwidth.
     """
-    import os
-    peak_flops = peak_flops or float(os.environ.get(
-        "TETRAEAR_PEAK_TFLOPS", "197")) * 1e12
-    peak_bw = peak_bw or float(os.environ.get(
-        "TETRAEAR_PEAK_GBS", "819")) * 1e9
+    peaks = device_peaks(device_kind)
+    peak_flops = peaks["fp32_flops"]
+    peak_bw = peaks["hbm_bytes_per_s"]
     est = roofline_estimate(n_carriers, fs, frontend=frontend)
     flops = est["flops_per_s"]
     bbytes = est["hbm_bytes_per_s"]
-    if not include_scan:
-        flops -= est["scan_flops_per_s"]
     achieved_flops = flops * rt_factor
     achieved_bw = bbytes * rt_factor
-    frac = max(achieved_flops / peak_flops, achieved_bw / peak_bw)
-    # measured roofline: datasheet HBM (819 GB/s) is not sustainable on
-    # this part — chained streaming passes measure ~400-410 GB/s
-    # (perf/hbm_bw_probe.py), the honest denominator for memory-bound
-    # stages.  The figure comes from the newest committed PERF bundle's
-    # own probe (measured_hbm_gbs), reported alongside the datasheet
-    # fraction, never instead of it.
-    meas_gbs, meas_src = measured_hbm_gbs()
-    meas_bw = meas_gbs * 1e9
-    frac_meas = max(achieved_flops / peak_flops, achieved_bw / meas_bw)
     return {
-        "roofline_pct": 100.0 * frac,
-        "roofline_measured_pct": 100.0 * frac_meas,
-        "measured_gbs": meas_gbs,
-        "measured_gbs_source": meas_src,
+        "roofline_pct": 100.0 * max(achieved_flops / peak_flops,
+                                    achieved_bw / peak_bw),
         "achieved_tflops": achieved_flops / 1e12,
         "achieved_gbs": achieved_bw / 1e9,
         "bound": ("compute" if achieved_flops / peak_flops
                   >= achieved_bw / peak_bw else "memory"),
+        "peaks_source": peaks["source"],
         "model_flops_per_input_s": flops,
         "model_bytes_per_input_s": bbytes,
     }

@@ -7,7 +7,7 @@ Two parallel axes (SURVEY.md section 2.3 / 5.7):
   * ``time`` — the IQ sample axis (the sequence/context-parallel analogue):
     a long capture is split into segments, and each shard needs the tail of
     its left neighbour's segment (filter memory) — an overlap-save halo
-    moved with ``ppermute`` over ICI.
+    moved with ``ppermute`` between neighbouring devices.
 
 Inside a shard the demod is *stateless given the halo*: FIR memory comes
 from the halo samples, and the NCO phase at a segment boundary is computed
@@ -161,7 +161,7 @@ class ShardedDemod:
         c_local = x.shape[0]
         t_idx = jax.lax.axis_index("time")
 
-        # overlap-save halo: receive the left neighbour's tail over ICI
+        # overlap-save halo: receive the left neighbour's tail
         tail = x[:, -self.halo:]
         n_time = jax.lax.axis_size("time")
         left = jax.lax.ppermute(
@@ -201,7 +201,7 @@ class ShardedDemod:
         hard, soft, _ = timing.dqpsk_demod(
             syms, valid, jnp.zeros((c_local,), jnp.complex64))
 
-        # fleet-wide sync statistics over ICI (the psum analogue of the
+        # fleet-wide sync statistics (the psum analogue of the
         # reference's protocol.stats counters)
         bits = jnp.repeat(hard, 2, axis=1)
         bits = bits.at[:, 0::2].set(hard >> 1)
@@ -241,12 +241,12 @@ class ShardedFFTDemod:
     """Carrier x time sharded demod using the FFT channelizer frontend.
 
     The scale path for BASELINE configs 4-5: each time shard processes one
-    wideband segment (left halo arrives over ICI via ``ppermute``), runs
-    the pow2 overlap-save channelizer for its *local* slice of the carrier
-    bank, and the polyphase/timing/demod back half — so a v5e-16 splits
-    10k+ carriers over the carrier axis and the capture over the time
-    axis with no sequential dependencies (closed-form integer NCO phase
-    at segment boundaries, as in ShardedDemod).
+    wideband segment (left halo arrives via ``ppermute``), runs the pow2
+    overlap-save channelizer for its *local* slice of the carrier bank,
+    and the polyphase/timing/demod back half — so a mesh splits 10k+
+    carriers over the carrier axis and the capture over the time axis
+    with no sequential dependencies (closed-form integer NCO phase at
+    segment boundaries, as in ShardedDemod).
     """
 
     def __init__(self, fs: float, freqs_hz, mesh: Mesh,
@@ -338,7 +338,7 @@ class ShardedFFTDemod:
         c_local = seg_cycles_local.shape[0]
         x = kernels.r2c(x_r)
 
-        # overlap-save halo from the left time-neighbour over ICI
+        # overlap-save halo from the left time-neighbour
         n_time = jax.lax.axis_size("time")
         tail = kernels.c2r(x[-ch.overlap:])
         left = jax.lax.ppermute(
@@ -360,8 +360,8 @@ class ShardedFFTDemod:
                 jnp.asarray(ch.band_start), c0, c_local, 0)
 
         xx = jnp.concatenate([kernels.r2c(left), x])
-        X = ch._wideband_fft(xx)
-        x_ext = jnp.concatenate([X, X[:ch.n_band]])
+        big_x = jnp.fft.fft(xx)
+        x_ext = jnp.concatenate([big_x, big_x[:ch.n_band]])
         if ch.aligned:
             rows = x_ext.reshape(-1, 128)
             nat = rows[row_idx].reshape(c_local, ch.n_band)
@@ -369,11 +369,11 @@ class ShardedFFTDemod:
             idx = (starts[:, None]
                    + jnp.arange(ch.n_band, dtype=jnp.int32)[None, :])
             nat = x_ext[idx]
-        # natural-order synthesis: ch.h1_band is a rolled table and
-        # ch._synth + the (-1)^k sign replace the per-block fftshift
-        # (see FFTChannelizer.step)
+        # natural-order synthesis: ch.h1_band is a rolled table and the
+        # ifft + the (-1)^k sign replace the per-block fftshift (see
+        # FFTChannelizer.step)
         band = nat * jnp.asarray(ch.h1_band)[None, :]
-        y = ch._synth(band) * jnp.float32(1.0 / ch.decim)
+        y = jnp.fft.ifft(band, axis=1) * jnp.float32(1.0 / ch.decim)
         y = y[:, ch.drop:ch.drop + ch.n_out]
         y = y * jnp.asarray(ch.sign)[None, :]
         ang = cycles.astype(jnp.float32) * jnp.float32(
@@ -381,7 +381,7 @@ class ShardedFFTDemod:
         y = y * jax.lax.complex(jnp.cos(ang), -jnp.sin(ang))[:, None]
 
         # channel-rate overlap-save halo for the back half: receive the
-        # left neighbour's channelized tail over ICI.  Both sides are
+        # left neighbour's channelized tail.  Both sides are
         # phase-corrected to GLOBAL phase above, so the concatenation is
         # sample-continuous; the back half then has real filter history
         # and this shard's exposed output double-covers the boundary.

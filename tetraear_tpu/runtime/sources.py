@@ -236,6 +236,84 @@ class SyntheticTetraSource(IQSource):
         return out
 
 
+class ArrayIQSource(IQSource):
+    """Serve an in-memory capture (e.g. one made by band_capture)."""
+
+    def __init__(self, iq: np.ndarray, sample_rate: float,
+                 frequency: float = 392.5e6):
+        super().__init__(frequency=frequency, sample_rate=sample_rate)
+        self._data = np.asarray(iq, np.complex64)
+        self._pos = 0
+
+    def read_samples(self, num_samples: int) -> np.ndarray:
+        out = self._data[self._pos:self._pos + num_samples]
+        self._pos += len(out)
+        return out
+
+
+def band_capture(fs: float, carriers: list, n_min: int,
+                 seed: int = 0) -> np.ndarray:
+    """Seeded wideband capture: keyed TETRA carriers in unit-power noise.
+
+    carriers: [(offset_hz, bits, snr_db)].  Each carrier is modulated at
+    the 72 kHz baseband rate (ref.modulator) and placed by an EXACT
+    frequency shift: its baseband spectrum is added into the wideband
+    spectrum at bin offset_hz * N / fs, so the capture is the band-
+    limited interpolation of every carrier with no resampling filter.
+    Complex white noise has unit power per sample across the whole
+    capture; snr_db is the carrier power over the noise power in the
+    18 kHz symbol-rate bandwidth.  A carrier whose bits run out before
+    the capture ends goes silent (a continuous control channel needs
+    enough bits).
+
+    fs must be an integer multiple of 72 kHz and every offset an
+    integer number of Hz; the length is rounded up from n_min so that
+    every offset lands on an exact bin.  Built with jax.numpy on the
+    default device (the large inverse FFT is the bulk of the work).
+    Returns complex64 IQ of length N >= n_min.
+    """
+    import math
+
+    import jax
+    import jax.numpy as jnp
+
+    from tetraear_tpu.dsp import design
+    from tetraear_tpu.ref import modulator
+
+    rate = int(design.BASEBAND_RATE)
+    ratio = fs / rate
+    if abs(ratio - round(ratio)) > 1e-9:
+        raise ValueError(f"fs={fs:g} is not a multiple of {rate} Hz")
+    ratio = int(round(ratio))
+    g = 0
+    for off, _bits, _snr in carriers:
+        if abs(off - round(off)) > 1e-9:
+            raise ValueError(f"offset {off} Hz is not an integer")
+        g = math.gcd(g, abs(int(round(off))))
+    # offset * n_b / rate must be an integer for every carrier
+    quantum = rate // math.gcd(rate, g) if g else 1
+    n_b = -(-int(n_min) // ratio)
+    n_b = -(-n_b // quantum) * quantum
+    n = n_b * ratio
+    spec = jnp.zeros(n, jnp.complex64)
+    k = np.fft.fftfreq(n_b, 1.0 / n_b).astype(np.int64)      # signed bins
+    for off, bits, snr_db in carriers:
+        bb = modulator.symbols_to_baseband(modulator.bits_to_symbols(bits))
+        p_sig = float(np.mean(np.abs(bb) ** 2))
+        # noise power in the symbol-rate band: 18 kHz of fs, unit total
+        p_want = 10.0 ** (snr_db / 10.0) * design.SYMBOL_RATE / fs
+        bb = bb[:n_b] * np.sqrt(p_want / p_sig)
+        bb = np.concatenate([bb, np.zeros(n_b - len(bb), bb.dtype)])
+        k0 = int(round(off)) * n_b // rate
+        idx = (k0 + k) % n
+        spec = spec.at[jnp.asarray(idx)].add(
+            jnp.asarray(np.fft.fft(bb) * ratio, jnp.complex64))
+    noise = jax.random.normal(jax.random.PRNGKey(seed), (2, n),
+                              jnp.float32) * np.float32(np.sqrt(0.5))
+    x = jnp.fft.ifft(spec) + jax.lax.complex(noise[0], noise[1])
+    return np.asarray(x.astype(jnp.complex64))
+
+
 class RTLSDRSource(IQSource):
     """RTL-SDR hardware capture (requires pyrtlsdr + librtlsdr).
 

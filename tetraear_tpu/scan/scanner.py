@@ -7,7 +7,7 @@ Two scanners:
     25 kHz step, Poland presets, result table.  Works against any capture
     object exposing set_frequency/read_samples (hardware or synthetic).
 
-  * WidebandScanner — the TPU-native design: ONE capture covers fs/25 kHz
+  * WidebandScanner — the batched design: ONE capture covers fs/25 kHz
     channels; the carrier bank demodulates all of them simultaneously and
     every channel is scored (power, sync rate, CRC) in a single batched
     pass.  A 2.4 Msps capture scans 96 channels in one shot instead of 96
@@ -147,7 +147,7 @@ class FrequencyScanner:
 
 
 class WidebandScanner:
-    """One-shot all-channel scan of a wideband capture (TPU-native).
+    """One-shot all-channel scan of a wideband capture (batched on device).
 
     Channelizes every 25 kHz channel in the capture with the batched
     carrier bank and scores each by band power, sync correlation and

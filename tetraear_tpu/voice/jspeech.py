@@ -2,10 +2,8 @@
 
 The native decoder (voice/csrc/etsi_acelp_dec.cpp, bit-exact vs the
 reference sdecoder binary) synthesizes one carrier at a time on the
-host: ~71 us per 30 ms frame per core, ~1.1k realtime voice carriers
-with the thread pool (api.PipelineConfig.voice_threads).  The demod +
-frame layer sustains >20k realtime carriers on one chip, so at fleet
-scale speech synthesis is the remaining host bottleneck.  This module
+host (with a thread pool, api.PipelineConfig.voice_threads), so at
+fleet scale speech synthesis is a host bottleneck.  This module
 decodes a whole fleet's voice frames in ONE jitted program: every
 Word16/Word32 operation is the exact saturating basicop
 (voice/jfixed.py), recursions (long-term predictor, synthesis filters,
@@ -283,10 +281,9 @@ def _pred_lt(buf, t0, frac, base: int):
     """Pred_Lt on the excitation buffer (B, EXC_LEN) at static offset
     ``base``; t0/frac per carrier.  Each new sample may feed later taps
     (pos - t0 + 16 can reach written samples), so this is a true
-    recursion — but the per-sample (B, 33) take_along_axis gather the
-    first formulation used made the scan LATENCY-bound on TPU (the
-    whole voice chain measured ~420 ms/block at any batch size,
-    agenda8).  Here the window region is gathered ONCE per subframe
+    recursion — but a per-sample (B, 33) take_along_axis gather
+    inside the scan makes every step wait on a gather.  Here the
+    window region is gathered ONCE per subframe
     into a sliding ``ext`` buffer; inside the 60-step scan the window
     read is a batch-uniform dynamic_slice (the scan counter is the
     only offset) and the recursion feedback is a one-hot masked add at
@@ -341,7 +338,7 @@ def _sharpen(h, t0):
 
     def step(h, i):
         # one-hot masked reduce instead of a per-step gather (same
-        # TPU-latency reasoning as _pred_lt); i < t0 -> empty one-hot
+        # reasoning as _pred_lt); i < t0 -> empty one-hot
         # -> hv = 0, discarded by the i >= t0 select anyway
         sel = ar[None, :] == (i - t0)[:, None]
         hv = jnp.sum(jnp.where(sel, h, 0), axis=1)

@@ -22,17 +22,14 @@ decoder — asserted end-to-end in tests/unit/test_device_voice.py.
 Fleet scaling: the slot axis is embarrassingly parallel (every leaf of
 SpeechState is batch-major, decode_block is a per-row integer recurrence
 with no cross-row term), so a ``mesh`` argument shards the pool's slots
-across devices with a plain NamedSharding — each chip owns slots/N
+across devices with a plain NamedSharding — each device owns slots/N
 decoder states, jit partitions the whole decode with ZERO collectives in
 the decode body (one gather assembles the requested rows' PCM at the
 end).  PCM is bit-identical to the single-device pool for any mesh size
 (integer arithmetic — partitioning cannot change a single Word16 op);
 asserted at mesh 1/2/4/8 in __graft_entry__.dryrun_multichip.  This is
-the "more chips" axis for the voice bottleneck: one chip voice-decodes
-~2.1k carriers (94% of its device roofline, BENCH_r04) vs ~32k demod
-carriers, so a mixed fleet provisions ~15 voice chips per demod chip
-and this pool spans them (reference scope: one host codec call per
-frame, tetraear/audio/voice.py:73-250).
+the "more devices" axis for voice (reference scope: one host codec
+call per frame, tetraear/audio/voice.py:73-250).
 """
 
 from __future__ import annotations

@@ -3,8 +3,7 @@
 The C++ codec decodes one 432-soft-bit block at a time on the host
 (voice/csrc/channel.cpp).  At fleet scale — every traffic slot of
 thousands of carriers — voice channel decoding must batch onto the
-accelerator (SURVEY.md §2.2: "the codec channel-decoding math become
-JAX/Pallas kernels").  This module decodes (B, 432) blocks in one jitted
+accelerator (SURVEY.md §2.2).  This module decodes (B, 432) blocks in one jitted
 program:
 
   * deinterleave + class-0 split: static index maps, no gathers;
@@ -110,8 +109,7 @@ def channel_decode_batch_traced(soft: jnp.ndarray) -> tuple:
     def tb_step(state, dec_i):
         # state (B,) post-step state; dec_i (B, 16) parity decisions.
         # One-hot masked reduce instead of a per-step take_along_axis
-        # gather (gathers inside sample scans are latency-poison on
-        # TPU — same fix as jspeech._pred_lt)
+        # gather inside the sample scan (same fix as jspeech._pred_lt)
         bit = (state >> 3).astype(jnp.uint8)
         sel = st_iota == state[:, None]
         par = jnp.sum(jnp.where(sel, dec_i.astype(jnp.int32), 0),
